@@ -1,7 +1,7 @@
-"""beamform_tpu — a TPU-native multichannel acoustic beamforming framework.
+"""beamform_tpu — a multichannel acoustic beamforming framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
-`balkce/beamform` ROS/JACK package (reference mounted at /root/reference):
+A from-scratch JAX/XLA re-design of the capabilities of the
+`balkce/beamform` ROS/JACK package:
 seven frequency-domain beamformers (das, mvdr, gsc, lcmv, gss, phase,
 phasempf), an MCRA noise estimator, utility passthrough nodes, a streaming
 WOLA engine, a theta/interference control timeline, DOA refinement helpers,

@@ -3,7 +3,7 @@
 Re-design of the reference's streaming engine (util.h:201-314): the JACK ring
 buffers + double-buffered output windows become a *batched* framing/overlap
 transform over a whole signal — frames become a tensor axis so the FFTs and
-per-bin math run as one large batched op on the MXU/VPU instead of one window
+per-bin math run as one large batched device op instead of one window
 at a time on a real-time thread.
 
 Exact reference semantics reproduced:

@@ -3,10 +3,11 @@
 Reference: das.cpp — per bin y(f) = w(f)^H x(f) / M (das.cpp:60-63) with
 steering weights w_m(f) = exp(-i 2 pi f tau_m), mic0 = 1 (das.cpp:27-45).
 
-TPU design: the whole run is one batched einsum over (frames, mics, bins) —
-the per-bin C++ loop becomes a single contraction the compiler fuses with the
-FFTs; a theta timeline enters as per-frame steering weights computed
-in-graph. Streaming state is just the WOLA boundary carry.
+Design: the whole run is one batched multiply-and-sum over (frames, mics,
+bins) -- the per-bin C++ loop becomes a single reduction the compiler fuses
+with the steering-weight gather; a theta timeline enters as per-frame
+steering weights computed in-graph. Streaming state is just the WOLA
+boundary carry.
 """
 
 from __future__ import annotations
@@ -27,11 +28,9 @@ def das_spectral(x_spec, weights):
     ``x_spec``: (T, M, N); ``weights``: (M, N) or (T, M, N).
     """
     m = x_spec.shape[-2]
-    if weights.ndim == 2:
-        y = jnp.einsum("mn,tmn->tn", jnp.conj(weights), x_spec)
-    else:
-        y = jnp.einsum("tmn,tmn->tn", jnp.conj(weights), x_spec)
-    return y / m
+    # multiply-and-sum rather than a dot: XLA fuses it, and no TF32 pass
+    # can enter a float32 contraction
+    return jnp.sum(jnp.conj(weights) * x_spec, axis=-2) / m
 
 
 class DasModel(BatchableModel):
@@ -53,75 +52,15 @@ class DasModel(BatchableModel):
     def _forward(self, x, thetas, w_idx, carry: common.WolaCarry):
         w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
                                            self.rdtype, self.cdtype)
-        if common.use_wola_kernels(self.engine):
-            # the fused WOLA kernel emits (T, M, NB) natively
-            spec, tail = common.stft_ext_carry(
-                x, self.engine, self.window, self.cdtype, carry.tail)
-            m = spec.shape[1]
-            w = w_uniq[w_idx]                             # (T, M, NB)
-            y = jnp.einsum("tmn,tmn->tn", jnp.conj(w), spec) / m
-        else:
-            # (M, T, NB) layout straight from the rFFT: contract over mics
-            # without transposing the spectra
-            spec_mt, tail = common.stft_ext_carry_mt(
-                x, self.engine, self.window, self.cdtype, carry.tail)
-            m = spec_mt.shape[0]
-            w = w_uniq[w_idx]
-            y = jnp.einsum("tmn,mtn->tn", jnp.conj(w), spec_mt) / m
+        # (M, T, NB) layout straight from the rFFT: sum over mics without
+        # transposing the spectra
+        spec_mt, tail = common.stft_ext_carry_mt(
+            x, self.engine, self.window, self.cdtype, carry.tail)
+        w = jnp.moveaxis(w_uniq[w_idx], 1, 0)             # (M, T, NB)
+        y = jnp.sum(jnp.conj(w) * spec_mt, axis=0) / spec_mt.shape[0]
         out, prev = common.istft_ext_carry(y, self.engine, self.window,
                                            carry.out_prev)
         return out, common.WolaCarry(tail, prev)
-
-    def _forward_batched(self, x, thetas, idx, carry):
-        """Multi-stream forward without vmapping the pallas analysis: the
-        (B, M) channels flatten through the WOLA kernels (a vmapped
-        pallas_call lowers but serializes poorly), steering applies per
-        (stream, frame), and the channel-batched synthesis kernel carries
-        one OLA state per stream."""
-        if not common.use_wola_kernels(self.engine):
-            return jax.vmap(self._forward,
-                            in_axes=(0, None, 0, 0))(x, thetas, idx, carry)
-        from beamform_tpu.kernels.wola_pallas import (
-            istft_ext_fused, stft_planes)
-        b, m, s_len = x.shape
-        hop = self.engine.hop
-        t = s_len // hop
-        xf = x.reshape(b * m, s_len)
-        tailf = carry.tail.reshape(b * m, hop)
-        sr, si, _, tailf2 = stft_planes(xf, tailf, self.window, self.engine,
-                                        with_mag=False)
-        nb = common.num_bins(self.engine)
-        spec = jax.lax.complex(sr[..., :nb], si[..., :nb])  # (T, B*M, NB)
-        spec = jnp.moveaxis(spec.reshape(t, b, m, nb), 1, 0)
-        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
-                                           self.rdtype, self.cdtype)
-        # idx (B,) = one steering per stream (the common serving shape):
-        # the (B, 1, M, NB) weights broadcast inside the multiply fusion —
-        # a per-(stream, frame) gather would materialize GBs
-        w = w_uniq[idx][:, None] if idx.ndim == 1 else w_uniq[idx]
-        y = jnp.sum(jnp.conj(w) * spec, axis=2) / m        # (B, T, NB)
-        out, prev = istft_ext_fused(y, self.engine, self.window,
-                                    carry.out_prev)
-        return out, common.WolaCarry(tailf2.reshape(b, m, hop), prev)
-
-    def batched_forward(self, x, ctrl, state):
-        """Natively batched override (see _forward_batched). Constant
-        per-stream steering (detected host-side) collapses the per-frame
-        index to (B,)."""
-        import numpy as _np
-        uniq, idx = ctrl
-        idx_np = _np.asarray(idx)
-        if idx_np.ndim == 2 and (idx_np == idx_np[:, :1]).all() \
-                and common.use_wola_kernels(self.engine):
-            idx = idx_np[:, 0]
-            key = "_batched_fn_const"
-        else:
-            key = "_batched_fn"
-        fn = self.__dict__.get(key)
-        if fn is None:
-            fn = jax.jit(self._forward_batched)
-            self.__dict__[key] = fn
-        return fn(x, uniq, idx, state)
 
     def process_chunk(self, x_chunk, theta, state):
         """Streaming step: (M, C*hop) in, ((C*hop,) out, new state)."""

@@ -14,12 +14,13 @@ Reference: gsc.cpp — two stages:
    with NaN/Inf scrubbing (gsc.cpp:158-168) and an optional VAD gate on the
    output power (gsc.cpp:146).
 
-TPU design: stage 1 is fully batched (one einsum + batched iFFTs). Stage 2
-is irreducibly sample-serial (each output feeds the next update), expressed
-as a ``lax.scan`` over samples with the (M-1, K) filter bank vectorized per
-step; running sums make the power estimates O(1) per sample instead of the
-reference's O(K) rescans. A Pallas kernel version lives in
-beamform_tpu.kernels.gsc_pallas for throughput.
+Design: stage 1 is fully batched (one product + batched iFFTs). Stage 2 is
+irreducibly sample-serial (each output feeds the next update). Its float32
+route on an NVIDIA GPU is one persistent kernel per stream
+(kernels/gsc_sample.py); everywhere else, and for float64 and the mu trace,
+it is a ``lax.scan`` over samples with the (M-1, K) filter bank vectorized
+per step. ``solver="blocklms"`` selects the non-faithful block-LMS stage
+(kernels/gsc_blocklms.py).
 """
 
 from __future__ import annotations
@@ -40,33 +41,7 @@ from beamform_tpu.dsp.wola import overlap_add_carry
 class GscState(NamedTuple):
     block: jnp.ndarray      # (M-1, K) blocking-matrix shift registers
     filt: jnp.ndarray       # (M-1, K) adaptive filters
-    last_out: jnp.ndarray   # (K,) recent outputs
-    # block-kernel extras (kernels/gsc_block.py): window-pair Grams at
-    # lags 0..7 and the 8 pre-register u samples. Only the block kernel
-    # consumes them, but EVERY path refreshes them from the u stream at
-    # chunk boundaries (gram_refresh) so a checkpoint written by any
-    # solver resumes on the block path without a correction transient
-    # (tests/test_gsc_block.py::test_gsc_cross_solver_resume).
-    gram: jnp.ndarray       # (M-1, 8)
-    uold: jnp.ndarray       # (M-1, 8)
-
-
-def gram_refresh(block_in, uold_in, u_new, k: int):
-    """Recompute the block kernel's lookahead state from the u stream.
-
-    ``block_in``/``uold_in``: the PRE-chunk register and pre-register
-    history (u[t0-K..t0-1] and u[t0-K-8..t0-K-1]); ``u_new``: this chunk's
-    blocking-matrix samples (..., C, S). Their concatenation is the
-    contiguous u stream, so the window-pair Grams
-    gram[l] = <b(t-1-l), b(t-1)> (b = K-tap window) and the 8 pre-register
-    samples fall out of the last K+8 values. Returns (gram (..., C, 8),
-    uold (..., C, 8))."""
-    ext = jnp.concatenate([uold_in, block_in, u_new], axis=-1)[..., -(k + 8):]
-    base = ext[..., 8:]
-    gram = jnp.stack(
-        [jnp.sum(ext[..., 8 - l:8 - l + k] * base, axis=-1)
-         for l in range(8)], axis=-1)
-    return gram, ext[..., :8]
+    last_out: jnp.ndarray   # (K,) recent outputs, oldest first
 
 
 def gsc_init_state(num_mics: int, filter_size: int, rdtype) -> GscState:
@@ -74,8 +49,6 @@ def gsc_init_state(num_mics: int, filter_size: int, rdtype) -> GscState:
         jnp.zeros((num_mics - 1, filter_size), dtype=rdtype),
         jnp.zeros((num_mics - 1, filter_size), dtype=rdtype),
         jnp.zeros((filter_size,), dtype=rdtype),
-        jnp.zeros((num_mics - 1, 8), dtype=rdtype),
-        jnp.zeros((num_mics - 1, 8), dtype=rdtype),
     )
 
 
@@ -97,7 +70,7 @@ def gsc_sample_step(state: GscState, a_t, p: GscParams,
     # mu0*block_pow/last_pow < mu_max is evaluated as
     # mu0^2*bsq < mu_max^2*osq (identical for non-negative power sums) and
     # mu = mu0*rsqrt(mean square) — one rsqrt instead of 2 sqrt + 3 div,
-    # shared with the Pallas kernel so both agree to round-off
+    # shared with kernels/gsc_sample.py so both agree to round-off
     osq = jnp.sum(last_out ** 2)
     bsq = jnp.sum(block ** 2, axis=1)                   # (M-1,)
     cond = (p.mu0 * p.mu0) * bsq < (p.mu_max * p.mu_max) * osq
@@ -112,10 +85,23 @@ def gsc_sample_step(state: GscState, a_t, p: GscParams,
         last_pow = jnp.sqrt(osq * kinv)
         upd = last_pow < p.vad_threshold
         filt_new = jnp.where(upd, filt_new, state.filt)
-    st = GscState(block, filt_new, last_out, state.gram, state.uold)
+    st = GscState(block, filt_new, last_out)
     if with_mu:
         return st, (out, mu[0], upd)
     return st, out
+
+
+def gsc_sample_scan(aligned, gstate: GscState, p: GscParams):
+    """The faithful adaptive stage as a ``lax.scan`` over samples, vmapped
+    over streams: aligned (B, M, S), state leaves with a leading B ->
+    (out (B, S), new state). The reference route for
+    kernels/gsc_sample.py and the route off the GPU."""
+    def one(a_stream, gst):
+        new, out = jax.lax.scan(
+            lambda s_, a_t: gsc_sample_step(s_, a_t, p), gst,
+            jnp.moveaxis(a_stream, 0, 1))
+        return out, new
+    return jax.vmap(one)(aligned, gstate)
 
 
 class GscModel(BatchableModel):
@@ -125,8 +111,7 @@ class GscModel(BatchableModel):
                  params: GscParams = GscParams(), interference_angles=()):
         self.engine, self.geom, self.params = engine, geom, params
         self.rdtype, self.cdtype = common.dtypes_of(engine)
-        import numpy as _np
-        self.np_r = _np.float64 if engine.dtype == "float64" else _np.float32
+        self.np_r = np.float64 if engine.dtype == "float64" else np.float32
         self.freqs = common.make_freqs_ext(engine)
         self.window = common.make_window(engine, self.rdtype)
         self._jit = jax.jit(self._forward)
@@ -152,109 +137,55 @@ class GscModel(BatchableModel):
         streams, prev = overlap_add_carry(y, self.engine.hop, carry.out_prev)
         return streams, common.WolaCarry(tail, prev)   # (M, S)
 
-    def _use_pallas(self, num_samples: int) -> bool:
-        return (common.use_mxu_fft(self.engine)       # tpu + float32
-                and self.params.filter_size == 128    # the reference default
-                and num_samples % 1024 == 0)
+    def _adaptive(self, aligned, gstate):
+        """Stage 2 for B streams: aligned (B, M, S), state leaves with a
+        leading B -> (out (B, S), new state)."""
+        p = self.params
+        if p.solver == "blocklms":
+            from beamform_tpu.kernels.gsc_blocklms import gsc_blocklms_scan
 
-    def _use_blocklms_scan(self, num_samples: int) -> bool:
-        """The non-faithful block-LMS mode off-TPU: same semantics as the
-        Pallas kernel via the lax.scan-over-blocks formulation, so tests
-        and checkpoints behave identically across backends."""
-        return (getattr(self.params, "solver", "") == "blocklms"
-                and not self.params.write_mu
-                and self.params.filter_size == 128
-                and num_samples
-                % getattr(self.params, "block_samples", 128) == 0)
+            def one_blk(a_stream, gst):
+                out, *new = gsc_blocklms_scan(a_stream, gst.block, gst.filt,
+                                              gst.last_out, p)
+                return out, GscState(*new)
+            return jax.vmap(one_blk)(aligned, gstate)
 
-    def _block_chunk(self, num_samples: int, batch: int = 1) -> int:
-        """Grid-step chunk for the block kernel (must divide the sample
-        count and hold whole 128-sample subtiles). The packed Gram
-        difference stream's VMEM block is (chunk, B, 128) f32 double-
-        buffered, so the chunk shrinks as the stream batch grows."""
-        cap = max(128, (384 * 32 // max(batch, 1)) // 128 * 128)
-        for c in (min(384, cap), 256, 128):
-            if c <= cap and num_samples % c == 0:
-                return c
-        return 128
+        def scan_route(a, st):
+            return gsc_sample_scan(a, st, p)
 
-    def _adaptive_kernel_batched(self, aligned_b, gstate):
-        """Route a (B, M, S) aligned batch through the block-factorized
-        kernel (kernels/gsc_block.py); falls back to the per-sample kernel
-        via solver='sample' for A/B comparison."""
-        solver = getattr(self.params, "solver", "block")
-        if solver in ("blocklms", "sample", "xmu"):
-            if solver == "blocklms":
-                from beamform_tpu.kernels.gsc_blocklms import (
-                    gsc_blocklms_pallas_batched as kernel)
-            elif solver == "sample":
-                from beamform_tpu.kernels.gsc_pallas import (
-                    gsc_adaptive_pallas_batched as kernel)
-            else:
-                from beamform_tpu.kernels.gsc_pallas import (
-                    gsc_adaptive_pallas_xmu as kernel)
-            out, blk, flt, lo = kernel(
-                aligned_b, gstate.block, gstate.filt, gstate.last_out,
-                self.params)
-            gram, uold = gram_refresh(
-                gstate.block, gstate.uold,
-                aligned_b[:, 1:, :] - aligned_b[:, :-1, :],
-                self.params.filter_size)
-            return out, GscState(blk, flt, lo, gram, uold)
-        from beamform_tpu.kernels.gsc_block import gsc_block_pallas_batched
-        out, blk, flt, lo, gram, uold = gsc_block_pallas_batched(
-            aligned_b, gstate.block, gstate.filt, gstate.last_out,
-            gstate.gram, gstate.uold, self.params,
-            chunk=self._block_chunk(aligned_b.shape[-1],
-                                    aligned_b.shape[0]))
-        return out, GscState(blk, flt, lo, gram, uold)
+        if self.rdtype != jnp.float32:
+            return scan_route(aligned, gstate)
+
+        def kernel_route(a, st):
+            from beamform_tpu.kernels.gsc_sample import gsc_sample_pallas
+            out, *new = gsc_sample_pallas(a, st.block, st.filt, st.last_out,
+                                          p)
+            return out, GscState(*new)
+        return jax.lax.platform_dependent(aligned, gstate, cuda=kernel_route,
+                                          default=scan_route)
 
     def _forward(self, x, thetas, w_idx, state):
         carry, gstate = state
         aligned, carry = self.aligned_streams(x, thetas, w_idx, carry)
 
         # the mu trace needs the per-sample scan (write_mu, gsc.cpp:181-184)
-        if self._use_pallas(aligned.shape[-1]) and not self.params.write_mu:
-            gb = jax.tree.map(lambda a: a[None], gstate)
-            out, gb = self._adaptive_kernel_batched(aligned[None], gb)
-            return out[0], (carry, jax.tree.map(lambda a: a[0], gb))
-
-        if self._use_blocklms_scan(aligned.shape[-1]):
-            from beamform_tpu.kernels.gsc_blocklms import gsc_blocklms_scan
-            out, blk, flt, lo = gsc_blocklms_scan(
-                aligned, gstate.block, gstate.filt, gstate.last_out,
-                self.params)
-            gram, uold = gram_refresh(gstate.block, gstate.uold,
-                                      aligned[1:] - aligned[:-1],
-                                      self.params.filter_size)
-            return out, (carry, GscState(blk, flt, lo, gram, uold))
-
-        def step(st, a_t):
-            return gsc_sample_step(st, a_t, self.params,
-                                   with_mu=self.params.write_mu)
-
-        gin = gstate
-        gstate, ys = jax.lax.scan(step, gstate, jnp.moveaxis(aligned, 0, 1))
-        gram, uold = gram_refresh(gin.block, gin.uold,
-                                  aligned[1:] - aligned[:-1],
-                                  self.params.filter_size)
-        gstate = GscState(gstate.block, gstate.filt, gstate.last_out,
-                          gram, uold)
         if self.params.write_mu:
-            out, mu0, upd = ys
+            gstate, (out, mu0, upd) = jax.lax.scan(
+                lambda st, a_t: gsc_sample_step(st, a_t, self.params,
+                                                with_mu=True),
+                gstate, jnp.moveaxis(aligned, 0, 1))
             return out, (carry, gstate), (mu0, upd)
-        return ys, (carry, gstate)
+        out, gb = self._adaptive(aligned[None],
+                                 jax.tree.map(lambda a: a[None], gstate))
+        return out[0], (carry, jax.tree.map(lambda a: a[0], gb))
 
     def batched_forward(self, x, ctrl, state):
-        """Natively batched override of the BatchableModel default: a vmap
-        over the Pallas kernel would be incorrect (its grid axis 0 is the
-        chunk axis), so the batch rides the kernel's own stream axis.
+        """Natively batched override of the BatchableModel default: the
+        streams ride the adaptive kernel's grid instead of a vmap.
         Constant per-stream steering (detected host-side) collapses the
         per-frame weight gather to a broadcast."""
-        import jax as _jax
-        import numpy as _np
         uniq, idx = ctrl
-        idx_np = _np.asarray(idx)
+        idx_np = np.asarray(idx)
         if idx_np.ndim == 2 and (idx_np == idx_np[:, :1]).all():
             idx = idx_np[:, 0]
             key = "_batched_fn_const"
@@ -262,15 +193,14 @@ class GscModel(BatchableModel):
             key = "_batched_fn"
         fn = self.__dict__.get(key)
         if fn is None:
-            fn = _jax.jit(self._forward_batched)
+            fn = jax.jit(self._forward_batched)
             self.__dict__[key] = fn
         return fn(x, uniq, idx, state)
 
     def _aligned_streams_batched(self, x, thetas, w_idx, carry):
-        """Stage 1 for B streams without vmapping: the (B, M) channels
-        flatten into one channel axis through the WOLA analysis (a vmapped
-        pallas_call would recompile per batching rule and crashes Mosaic),
-        then steer per (stream, frame) and resynthesize per channel."""
+        """Stage 1 for B streams: the (B, M) channels flatten into one
+        channel axis through the WOLA analysis, then steer per
+        (stream, frame) and resynthesize per channel."""
         b, m, s_len = x.shape
         hop = self.engine.hop
         t = s_len // hop
@@ -285,14 +215,6 @@ class GscModel(BatchableModel):
         # (B,) index = constant steering per stream: broadcast in-fusion
         w = w_uniq[w_idx][:, None] if w_idx.ndim == 1 else w_uniq[w_idx]
         aligned_spec = spec * jnp.conj(w)          # gsc.cpp:62-65
-        if common.use_wola_kernels(self.engine):
-            from beamform_tpu.kernels.wola_pallas import istft_ext_fused
-            ych = jnp.moveaxis(aligned_spec, 2, 1).reshape(b * m, t, -1)
-            streams, prevf = istft_ext_fused(
-                ych, self.engine, self.window,
-                carry.out_prev.reshape(b * m, hop))
-            return (streams.reshape(b, m, -1),
-                    common.WolaCarry(new_tail, prevf.reshape(b, m, hop)))
         y = common.synth_frames_ext(aligned_spec, self.engine)  # (B,T,M,N)
         y = y * self.window
         y = jnp.moveaxis(y, 2, 1)                  # (B, M, T, N)
@@ -300,45 +222,12 @@ class GscModel(BatchableModel):
         return streams, common.WolaCarry(new_tail, prev)   # (B, M, S)
 
     def _forward_batched(self, x, thetas, idx, state):
-        """Multi-stream forward: x (B, M, S), idx (B, T), state leaves with
-        leading B. Stage 1 runs channel-flattened; the adaptive stage runs
-        the natively batched Pallas kernel (streams on sublanes amortize
-        the per-sample issue overhead) or a vmapped scan elsewhere."""
+        """Multi-stream forward: x (B, M, S), idx (B,) or (B, T), state
+        leaves with leading B."""
         carry, gstate = state
         aligned, carry = self._aligned_streams_batched(x, thetas, idx,
                                                        carry)
-
-        if self._use_pallas(aligned.shape[-1]) and not self.params.write_mu:
-            out, gstate = self._adaptive_kernel_batched(aligned, gstate)
-            return out, (carry, gstate)
-
-        if self._use_blocklms_scan(aligned.shape[-1]):
-            from beamform_tpu.kernels.gsc_blocklms import gsc_blocklms_scan
-
-            def one_blk(a_stream, gst):
-                out, blk, flt, lo = gsc_blocklms_scan(
-                    a_stream, gst.block, gst.filt, gst.last_out,
-                    self.params)
-                gram, uold = gram_refresh(gst.block, gst.uold,
-                                          a_stream[1:] - a_stream[:-1],
-                                          self.params.filter_size)
-                return out, GscState(blk, flt, lo, gram, uold)
-
-            out, gstate = jax.vmap(one_blk)(aligned, gstate)
-            return out, (carry, gstate)
-
-        def one(a_stream, gst):
-            def step(st, a_t):
-                return gsc_sample_step(st, a_t, self.params)
-            new, out = jax.lax.scan(step, gst,
-                                    jnp.moveaxis(a_stream, 0, 1))
-            gram, uold = gram_refresh(gst.block, gst.uold,
-                                      a_stream[1:] - a_stream[:-1],
-                                      self.params.filter_size)
-            return GscState(new.block, new.filt, new.last_out,
-                            gram, uold), out
-
-        gstate, out = jax.vmap(one)(aligned, gstate)
+        out, gstate = self._adaptive(aligned, gstate)
         return out, (carry, gstate)
 
     def process_chunk(self, x_chunk, theta, state):

@@ -11,7 +11,7 @@ output bin is never written — the loop writes y_fft[j] with j == fft_win at
 mcra.cpp:127 (out of bounds); on a fresh heap the real y_fft[0] stays 0
 forever, so faithful DC output is 0 (EngineConfig.bug_dc_zero).
 
-TPU design: the per-window recurrence is a ``lax.scan`` over frames with all
+Design: the per-window recurrence is a ``lax.scan`` over frames with all
 bins vectorized in the carry; the frequency smoothing is a static 3-tap
 stencil (shifts + masked adds).
 """

@@ -7,9 +7,10 @@ either keep the mean magnitude at the reference mic's phase or attenuate by
 ``mag_mult`` (phase.cpp:100-123). A low-magnitude gate
 (``mag_mean/fft_win > mag_threshold``) short-circuits to attenuation.
 
-TPU design: the recursion over mic pairs becomes a vectorized reduction over
+Design: the recursion over mic pairs becomes a vectorized reduction over
 the static upper-triangle pair list; everything is stateless per frame, so
-the whole run is one batched map over (frames, bins) — no scan at all.
+the whole run is one batched elementwise map over (frames, bins) that XLA
+fuses — no scan at all.
 """
 
 from __future__ import annotations
@@ -39,30 +40,12 @@ def mean_pairwise_phase_dist(aligned_phase, ia, ib):
 
 
 def phase_mask_spectral(x_spec, weights, params: PhaseParams, nfft: int,
-                        ia, ib, bf16: bool = False):
-    """(T, M, N) spectra + (T, M, N)|(M, N) weights -> (T, N) output bins.
-
-    ``bf16``: run the mask arithmetic (alignment products, magnitudes) on
-    bfloat16 spectra planes — the roadmap's quantized-inference experiment.
-    The mask thresholds tolerate ~0.4% magnitude noise; arctan2 stays f32
-    (TPU has no bf16 transcendentals). Output magnitude/phase reconstruction
-    keeps the full-precision reference phase.
-    """
-    if bf16:
-        b = jnp.bfloat16
-        xr, xi = x_spec.real.astype(b), x_spec.imag.astype(b)
-        wr, wi = weights.real.astype(b), weights.imag.astype(b)
-        mag_mean = jnp.mean(
-            jnp.sqrt((xr * xr + xi * xi).astype(jnp.float32)), axis=-2)
-        pha = jnp.arctan2(x_spec[..., 0, :].imag, x_spec[..., 0, :].real)
-        ar = (wr * xr + wi * xi).astype(jnp.float32)   # conj(w) * x
-        ai = (wr * xi - wi * xr).astype(jnp.float32)
-        aligned_phase = jnp.arctan2(ai, ar)
-    else:
-        mag_mean = jnp.mean(jnp.abs(x_spec), axis=-2)        # (T, N)
-        pha = jnp.arctan2(x_spec[..., 0, :].imag, x_spec[..., 0, :].real)
-        aligned = jnp.conj(weights) * x_spec
-        aligned_phase = jnp.arctan2(aligned.imag, aligned.real)
+                        ia, ib):
+    """(T, M, N) spectra + (T, M, N)|(M, N) weights -> (T, N) output bins."""
+    mag_mean = jnp.mean(jnp.abs(x_spec), axis=-2)        # (T, N)
+    pha = jnp.arctan2(x_spec[..., 0, :].imag, x_spec[..., 0, :].real)
+    aligned = jnp.conj(weights) * x_spec
+    aligned_phase = jnp.arctan2(aligned.imag, aligned.real)
     diff_mean = mean_pairwise_phase_dist(aligned_phase, ia, ib)
 
     min_phase_rad = params.min_phase * jnp.pi / 180.0
@@ -81,8 +64,7 @@ class PhaseModel(BatchableModel):
                  params: PhaseParams = PhaseParams(), interference_angles=()):
         self.engine, self.geom, self.params = engine, geom, params
         self.rdtype, self.cdtype = common.dtypes_of(engine)
-        import numpy as _np
-        self.np_r = _np.float64 if engine.dtype == "float64" else _np.float32
+        self.np_r = np.float64 if engine.dtype == "float64" else np.float32
         self.freqs = common.make_freqs_ext(engine)
         self.window = common.make_window(engine, self.rdtype)
         self.ia, self.ib = pair_indices(geom.num_mics)
@@ -92,55 +74,7 @@ class PhaseModel(BatchableModel):
         return common.wola_carry_init(self.engine, self.geom.num_mics,
                                       self.rdtype)
 
-    def _strategy(self) -> str:
-        """Mask strategy: "fused" (one Pallas program between the WOLA
-        kernels, kernels/phase_mask.py — the TPU float32 production path)
-        or "xla" (batched formulation — CPU, float64, bf16 experiment)."""
-        solver = getattr(self.params, "solver", "auto")
-        if solver == "fused":
-            if self.cdtype != jnp.complex64:
-                raise ValueError("the fused mask is a float32 strategy; "
-                                 "use solver='xla' with float64")
-            return "fused"
-        if (solver == "auto" and common.use_wola_kernels(self.engine)
-                and not getattr(self.params, "spectra_bf16", False)):
-            return "fused"
-        return "xla"
-
-    def _forward_fused(self, x, thetas, w_idx, carry: common.WolaCarry):
-        """Fused path: analysis planes -> one mask kernel (alignment,
-        atan2, pairwise distances, gate — all VMEM-resident) -> fused
-        synthesis. Same algebra as the XLA path up to atan2 rounding
-        (~2 ulp; see kernels/phase_mask.py docstring)."""
-        from beamform_tpu.kernels.wola_pallas import (istft_ext_fused,
-                                                      stft_planes)
-        from beamform_tpu.kernels.phase_mask import phase_mask_pallas
-        interp = not common.on_tpu_device()
-        p = self.params
-        sr, si, _, tail = stft_planes(x, carry.tail, self.window,
-                                      self.engine, with_mag=False,
-                                      interpret=interp)
-        nibp = sr.shape[-1]
-        nb = common.num_bins(self.engine)
-        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
-                                           self.rdtype, self.cdtype)
-        zp = jnp.zeros(w_uniq.shape[:2] + (nibp - nb,), jnp.float32)
-        wr_u = jnp.concatenate([w_uniq.real.astype(jnp.float32), zp], -1)
-        wi_u = jnp.concatenate([w_uniq.imag.astype(jnp.float32), zp], -1)
-        yr, yi = phase_mask_pallas(
-            sr, si, wr_u, wi_u, jnp.asarray(w_idx),
-            min_phase_rad=p.min_phase * np.pi / 180.0,
-            mag_threshold=p.mag_threshold, mag_mult=p.mag_mult,
-            nfft=self.engine.fft_win, ia=self.ia, ib=self.ib,
-            interpret=interp)
-        y = jax.lax.complex(yr[:, :nb], yi[:, :nb])
-        out, prev = istft_ext_fused(y, self.engine, self.window,
-                                    carry.out_prev, interpret=interp)
-        return out, common.WolaCarry(tail, prev)
-
     def _forward(self, x, thetas, w_idx, carry: common.WolaCarry):
-        if self._strategy() == "fused":
-            return self._forward_fused(x, thetas, w_idx, carry)
         spec, tail = common.stft_ext_carry(x, self.engine, self.window,
                                            self.cdtype, carry.tail)
         w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
@@ -152,8 +86,7 @@ class PhaseModel(BatchableModel):
             spec_b, idx_b = args
             return phase_mask_spectral(
                 spec_b, w_uniq[idx_b], self.params, self.engine.fft_win,
-                self.ia, self.ib,
-                bf16=getattr(self.params, "spectra_bf16", False))
+                self.ia, self.ib)
 
         y = common.map_frame_blocks(mask_fn, spec, w_idx,
                                     pairs=len(self.ia))

@@ -2,7 +2,7 @@
 
 These implementations intentionally mirror the reference's control flow
 (per-callback ring buffers, per-bin loops, quirks and all) rather than the
-framework's batched TPU design, so that parity tests compare two
+framework's batched design, so that parity tests compare two
 *independently derived* implementations of the same math. They are the test
 stand-in for running the actual C++ nodes (which need JACK + ROS).
 """

@@ -11,7 +11,9 @@ topics (SURVEY.md §2 parallelism table); this framework scales by laying a
   parallel across bins, so bins shard cleanly with a single all-gather
   before each iFFT.
 
-Collectives ride ICI; DCN is only ever implied by multi-host ``jax.devices``.
+Every device of a GPU host reaches every other at the same rate, so the
+mesh follows the algorithm alone: streams first, a bin axis only where the
+caller asks for one.
 """
 
 from __future__ import annotations
@@ -23,15 +25,6 @@ import numpy as np
 from jax.sharding import Mesh
 
 
-def mesh_shape_for(n_devices: int) -> Tuple[int, int]:
-    """Pick a (stream, bin) mesh shape: favor a bin axis of 2-4 when the
-    device count allows, streams take the rest."""
-    for tp in (4, 2, 1):
-        if n_devices % tp == 0 and n_devices >= tp:
-            return n_devices // tp, tp
-    return n_devices, 1
-
-
 def make_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence] = None,
               shape: Optional[Tuple[int, int]] = None) -> Mesh:
@@ -39,9 +32,8 @@ def make_mesh(n_devices: Optional[int] = None,
         devices = jax.devices()
     if n_devices is not None:
         devices = devices[:n_devices]
-    if shape is None:
-        shape = mesh_shape_for(len(devices))
-    dp, tp = shape
+    # independent streams take every device unless a bin axis is asked for
+    dp, tp = shape if shape is not None else (len(devices), 1)
     assert dp * tp == len(devices), (dp, tp, len(devices))
     arr = np.asarray(devices).reshape(dp, tp)
     return Mesh(arr, axis_names=("stream", "bin"))

@@ -1,7 +1,7 @@
 """Batched multi-stream execution: the fleet-scale throughput path.
 
-The reference processes exactly one stream per process; production TPU
-serving wants many recordings/arrays per chip. Every model declares its own
+The reference processes exactly one stream per process; production
+serving wants many recordings/arrays per device. Every model declares its own
 batching (see beamform_tpu.models.batching): stacked carried state, vmapped
 or natively batched forward, shared vs per-stream control axes. Combine
 with ``parallel.sharded`` to spread the batch over a multi-chip mesh.

@@ -52,7 +52,7 @@ def _parse_value(v: str):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="beamform-tpu",
-        description="TPU-native multichannel beamforming (capabilities of "
+        description="Multichannel beamforming in JAX (capabilities of "
                     "balkce/beamform, re-designed for JAX/XLA)")
     p.add_argument("node", choices=NODES, help="beamformer / node to run")
     p.add_argument("--in", dest="input", default=None,
@@ -609,14 +609,8 @@ def main(argv=None) -> int:
     pkg_log.addHandler(handler)     # scoped: don't duplicate jax's handlers
     pkg_log.setLevel(getattr(logging, args.log_level.upper()))
 
-    # Some TPU plugins ignore JAX_PLATFORMS; honor a cpu request explicitly.
-    import os
-    if os.environ.get("JAX_PLATFORMS", "").lower() == "cpu":
-        import jax
-        try:
-            jax.config.update("jax_default_device", jax.devices("cpu")[0])
-        except RuntimeError:
-            pass
+    from beamform_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     if args.node == "write":
         return run_write(args)

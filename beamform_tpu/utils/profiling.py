@@ -5,7 +5,7 @@ The reference's observability is: std::chrono per-callback latency macros
 dumped to ~/rosjack_xrun_count.txt at SIGINT (rosjack.cpp:78-82, 290-300),
 and out-of-range warnings per output sample (rosjack.cpp:372-374).
 
-TPU-native equivalents:
+Equivalents here:
 
 * RealTimeMonitor — per-chunk wall-clock vs audio-clock accounting with an
   "xrun" counter (a chunk that took longer than the audio it carries misses
@@ -87,3 +87,26 @@ def trace_to(logdir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def require_gpu():
+    """The first JAX device, which must be an NVIDIA GPU: measurement
+    entry points fail rather than fall back to the CPU."""
+    import jax
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"no GPU: JAX's first device is {dev.platform} "
+                         f"({dev.device_kind}); this needs an NVIDIA GPU")
+    return dev
+
+
+def card_name_and_power_limit() -> str:
+    """``name, power.limit`` of the first card as nvidia-smi reports them
+    (a card set below its maximum power runs slower under load, so every
+    kept number carries this line)."""
+    import subprocess
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True)
+    return out.stdout.strip().splitlines()[0]

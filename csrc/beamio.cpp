@@ -1,6 +1,6 @@
 // beamio: native audio-runtime library for beamform_tpu.
 //
-// The TPU compute path is JAX/XLA; this library is the native runtime
+// The compute path is JAX/XLA; this library is the native runtime
 // around it, covering what the reference implements in C++ inside rosjack
 // (beamform/src/rosjack/rosjack.cpp): WAV file I/O with libsndfile-equivalent
 // float->PCM conversion, a lock-free single-producer/single-consumer ring

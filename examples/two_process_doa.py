@@ -25,7 +25,8 @@ so theta climbs from its wrong initial value onto the target while the
 audio is flowing — the DOA process demonstrably steers the beamformer
 process, with no shared memory and no in-process shortcut.
 
-Run: ``python examples/two_process_doa.py`` (hermetic, CPU, ~2 min).
+Run: ``python examples/two_process_doa.py`` (hermetic; set
+``JAX_PLATFORMS=cpu`` to keep the beamformer off the accelerator).
 """
 
 import argparse
@@ -36,6 +37,11 @@ import sys
 import threading
 
 import numpy as np
+
+# runnable from a plain checkout: the repo root is this file's parent's
+# parent (the spawned beamformer process gets the same path below)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 FS = 48000
 HOP = 256
@@ -114,8 +120,12 @@ def driver(args) -> int:
         os.unlink(control)
     cfg_path, mics, pcm = synth_scene_pcm(args.seconds)
 
-    env = dict(os.environ, JAX_PLATFORMS=os.environ.get(
-        "BEAMFORM_EXAMPLE_PLATFORM", "cpu"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [REPO, os.environ.get("PYTHONPATH")])))
+    # one JAX process per card: the beamformer (A) may take the GPU, the
+    # DOA refiner (B) needs none and stays on the CPU, since a second
+    # process on the card would fail for want of device memory
+    env_b = dict(env, JAX_PLATFORMS="cpu")
     a = subprocess.Popen(
         [sys.executable, "-m", "beamform_tpu.runtime.cli", "das",
          "--live", "--live-channels", str(mics), "--window-size", str(HOP),
@@ -127,7 +137,7 @@ def driver(args) -> int:
         [sys.executable, os.path.abspath(__file__), "--role", "doa",
          "--control", control, "--hop", str(HOP), "--theta0", str(THETA0),
          "--mu", str(MU), "--num-win", str(NUM_WIN)],
-        stdin=a.stdout, stdout=subprocess.PIPE, env=env)
+        stdin=a.stdout, stdout=subprocess.PIPE, env=env_b)
     a.stdout.close()               # B owns the read end now
 
     def feed():

@@ -108,16 +108,16 @@ def test_batch_state_carries():
                                    atol=1e-10)
 
 
-@pytest.mark.parametrize("name", ["mvdr", "lcmv"])
-def test_batch_vmaps_the_mega_kernel(name):
-    """BatchRunner on a float32 engine rides the default vmap over
-    ``_forward`` with the mega-fused pallas kernel inside — Mosaic's vmap
-    batching rule must reproduce the single-stream kernel exactly
-    (verified bit-equal on real TPU; pinned here in interpret mode)."""
+@pytest.mark.parametrize("name", ["mvdr", "lcmv", "gsc"])
+def test_batch_float32_matches_single(name):
+    """BatchRunner on a float32 engine (the deployed dtype): mvdr/lcmv ride
+    the default vmap over ``_forward``, gsc its natively batched stage;
+    both equal the single-stream runs at float32 round-off."""
     engine = EngineConfig(sample_rate=48000, window_size=HOP,
                           dtype="float32")
-    params = dict(past_windows=6, freq_mag_threshold=0.0008,
-                  freq_max=16000.0, freq_min=100.0, solver="mega")
+    params = (dict(mu0=0.0001, mu_max=0.1, filter_size=32) if name == "gsc"
+              else dict(past_windows=6, freq_mag_threshold=0.0008,
+                        freq_max=16000.0, freq_min=100.0))
     b = 2
     xs = np.stack([make_scene(AIRA3, seconds=0.1, theta_deg=10.0 + 7 * i,
                               seed=30 + i, hop=HOP, quiet_hops=6)

@@ -81,7 +81,7 @@ def test_param_resolution_logging(caplog):
     import logging
 
     with caplog.at_level(logging.INFO, logger="beamform_tpu.config"):
-        make_params("mvdr", {"past_windows": 7, "solver": "scan"})
+        make_params("mvdr", {"past_windows": 7, "solver": "dense"})
     warns = [r for r in caplog.records if r.levelno == logging.WARNING]
     infos = [r for r in caplog.records if r.levelno == logging.INFO]
     assert any("mvdr/past_windows" in r.getMessage() for r in infos)
@@ -92,3 +92,50 @@ def test_param_resolution_logging(caplog):
         assert any(f"mvdr/{name}" in m and default in m for m in warned), name
     # ...and the impl-only solver knob never does.
     assert not any("solver" in m for m in warned)
+
+
+def test_yaml_loader_reads_the_config_shapes():
+    """The YAML subset of configs/*.yaml and the reference's
+    beamform_config.yaml: scalars, one-line flow maps, indented block
+    maps, comments — without pyyaml."""
+    from beamform_tpu.config import load_yaml
+    doc = load_yaml(
+        "# geometry\n"
+        "verbose: true\n"
+        "initial_angle: -12.5   # degrees\n"
+        "mic0: {id: 0, x:  0.158, y: -0.115}\n"
+        "mic1:\n"
+        "  id: 1\n"
+        "  x: 1e-2\n"
+        "  y: .5\n"
+        "write_file_path: '/tmp/out.wav'\n"
+        "das: {}\n"
+        "angle_interf1: 181.0\n")
+    assert doc == {"verbose": True, "initial_angle": -12.5,
+                   "mic0": {"id": 0, "x": 0.158, "y": -0.115},
+                   "mic1": {"id": 1, "x": 0.01, "y": 0.5},
+                   "write_file_path": "/tmp/out.wav", "das": {},
+                   "angle_interf1": 181.0}
+
+
+def test_shipped_configs_load():
+    import os
+    import beamform_tpu
+    from beamform_tpu.config import load_array_config
+    cfg_dir = os.path.join(beamform_tpu.__path__[0], "configs")
+    a16 = load_array_config(os.path.join(cfg_dir, "aira16.yaml"))
+    assert a16.num_mics == 16 and a16.mics[15].x == 0.158
+    a3 = load_array_config(os.path.join(cfg_dir, "aira3.yaml"))
+    assert [(m.x, m.y) for m in a3.mics] == [(0.0, 0.0), (0.0, -0.18),
+                                             (-0.156, -0.09)]
+    assert load_launch_params("gss")["lambda"] == 0.0
+    assert load_launch_params("mcra")["out_only_noise"] is False
+
+
+def test_yaml_loader_rejects_what_it_cannot_read():
+    import pytest
+    from beamform_tpu.config import load_yaml
+    for bad in ("just a line\n", "  indented: 1\n", "m: {id: 0, x: 1\n",
+                "m: {id 0}\n"):
+        with pytest.raises(ValueError):
+            load_yaml(bad)

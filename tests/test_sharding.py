@@ -26,13 +26,16 @@ def _weights(engine, theta):
     return np.asarray(steering_weights(freqs, tau))
 
 
-def _cpu_mesh(n):
-    return make_mesh(n, devices=jax.devices("cpu"))
+def _cpu_mesh(n, bins=4):
+    """A (stream, bin) mesh with a bin axis asked for explicitly."""
+    return make_mesh(n, devices=jax.devices("cpu"), shape=(n // bins, bins))
 
 
 def test_mesh_shapes():
+    """Streams take every device unless a bin axis is asked for."""
+    assert make_mesh(8, devices=jax.devices("cpu")).devices.shape == (8, 1)
     m = _cpu_mesh(8)
-    assert m.devices.shape in ((4, 2), (2, 4))
+    assert m.devices.shape == (2, 4)
     assert m.axis_names == ("stream", "bin")
 
 
@@ -78,9 +81,9 @@ def test_sharded_training_step_runs_and_learns():
     # freq_max 16500 -> 44 in-band bins at hop 64: divisible by the
     # 4-way bin axis, so the state genuinely shards over 'bin'
     ("mvdr", dict(past_windows=6, freq_mag_threshold=0.0008,
-                  freq_max=16500.0, freq_min=100.0, solver="dense")),
+                  freq_max=16500.0, freq_min=100.0)),
     ("lcmv", dict(past_windows=6, freq_mag_threshold=0.0008,
-                  freq_max=16500.0, freq_min=100.0, solver="dense")),
+                  freq_max=16500.0, freq_min=100.0)),
     ("gss", dict(freq_mag_threshold=0.0008, freq_max=16500.0,
                  freq_min=100.0, mu=0.001)),
 ])
@@ -127,11 +130,10 @@ def test_sharded_stateful_model_matches_single_device(name, params):
 
 
 @pytest.mark.parametrize("name", ["mvdr", "lcmv"])
-def test_sharded_stream_solver_matches_single_device(name):
-    """The fused streaming Pallas solver sharded over bin groups
-    (shard_map, interpret mode on the CPU mesh): per-lane kernel math is
-    independent of which bins share a block, so the sharded run must match
-    the single-device stream-solver run (VERDICT round-2 item 3)."""
+def test_sharded_float32_matches_single_device(name):
+    """The float32 dense route sharded over (stream, bin): XLA fuses the
+    sharded analysis/synthesis differently than the single-device
+    program, so agreement is at float32 round-off."""
     from beamform_tpu.config import parse_array_config
     from beamform_tpu.models import get_model
     from beamform_tpu.parallel.sharded import (
@@ -145,9 +147,7 @@ def test_sharded_stream_solver_matches_single_device(name):
     # 44 in-band bins at hop 64 with this band: divisible by the bin axis
     model = get_model(name, engine, cfg,
                       dict(past_windows=6, freq_mag_threshold=0.0008,
-                           freq_max=16500.0, freq_min=100.0,
-                           solver="stream"))
-    assert model._use_stream()
+                           freq_max=16500.0, freq_min=100.0))
     xs = np.stack([make_scene(AIRA3, seconds=0.08, theta_deg=5.0 + 7 * i,
                               seed=40 + i, hop=HOP, quiet_hops=8)
                    for i in range(b)]).astype(np.float32)
@@ -158,9 +158,6 @@ def test_sharded_stream_solver_matches_single_device(name):
                for leaf in jax.tree.leaves(state) if leaf.ndim > 1)
     out, new_state = sharded_batched_step(mesh, model, xs, thetas, state)
     out = np.asarray(out)
-
-    # f32 round-off: sharded XLA fuses analysis/synthesis differently than
-    # the single-device program (same 2e-4 budget as stream-vs-dense)
     for i in range(b):
         yi = np.asarray(model.process(xs[i], float(thetas[i])))
         scale = max(np.abs(yi).max(), 1e-12)
@@ -174,16 +171,15 @@ def test_sharded_stream_solver_matches_single_device(name):
                                    atol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("solver,dtype,tol", [
-    ("dense", "float64", 1e-10),
-    ("stream", "float32", 2e-4),
+@pytest.mark.parametrize("dtype,tol", [
+    ("float64", 1e-10),
+    ("float32", 2e-4),
 ])
-def test_sharded_indivisible_bins_autopad(solver, dtype, tol):
+def test_sharded_indivisible_bins_autopad(dtype, tol):
     """Bins not divisible by the mesh 'bin' axis auto-pad up to it: the
     state is still genuinely bin-SHARDED (not replicated) and the outputs
-    still match the single-device run (VERDICT round-4 item 5). The dense
-    path zero-pads the stored state; the stream path additionally feeds the
-    kernel replicated last-bin lanes so every padded solve stays finite."""
+    still match the single-device run; the stored state is zero-padded
+    and the padding is sliced off before the model's math."""
     from beamform_tpu.config import parse_array_config
     from beamform_tpu.models import get_model
     from beamform_tpu.parallel.sharded import (
@@ -196,7 +192,7 @@ def test_sharded_indivisible_bins_autopad(solver, dtype, tol):
     # 43 in-band bins: not divisible by the 2- or 4-way bin axis
     model = get_model("mvdr", engine, cfg,
                       dict(past_windows=4, freq_mag_threshold=0.0008,
-                           freq_max=16100.0, freq_min=100.0, solver=solver))
+                           freq_max=16100.0, freq_min=100.0))
     assert len(model.ib) % mesh.devices.shape[1] != 0
     xs = np.stack([make_scene(AIRA3, seconds=0.08, theta_deg=5.0 + 7 * i,
                               seed=50 + i, hop=HOP, quiet_hops=8)
@@ -211,7 +207,7 @@ def test_sharded_indivisible_bins_autopad(solver, dtype, tol):
     for i in range(b):
         yi = np.asarray(model.process(xs[i], float(thetas[i])))
         scale = max(np.abs(yi).max(), 1e-12)
-        assert np.abs(out[i] - yi).max() / scale < tol, solver
+        assert np.abs(out[i] - yi).max() / scale < tol, dtype
 
     # round-trips: the padded new state feeds the next chunk unchanged
     out2, _ = sharded_batched_step(mesh, model, xs, thetas, new_state)
@@ -253,27 +249,35 @@ def test_sharded_masking_family_matches_single_device(name, params):
         np.testing.assert_allclose(out[i], yi, atol=1e-10, err_msg=name)
 
 
-def test_sharded_sparse_solver_is_rejected():
-    """Legacy guard repurposed: an f64 'sparse' model deprecation-maps to
-    the dense path, which must still run sharded."""
+@pytest.mark.parametrize("name", ["gsc", "mvdr"])
+def test_streams_only_mesh_runs_streams_locally(name):
+    """Without a bin axis every device runs its own streams through the
+    model (shard_map, no collective): outputs and state stay stream-sharded
+    and equal the single-stream runs. This is the layout of a GPU host,
+    where the GSC kernel has no partitioning rule."""
     from beamform_tpu.config import parse_array_config
     from beamform_tpu.models import get_model
     from beamform_tpu.parallel.sharded import (
         sharded_batched_step, sharded_state_init)
     engine = EngineConfig(sample_rate=FS, window_size=HOP, dtype="float64")
-    mesh = _cpu_mesh(8)
+    mesh = make_mesh(4, devices=jax.devices("cpu"))
+    assert mesh.devices.shape == (4, 1)
     cfg = parse_array_config({f"mic{i}": {"id": i, "x": x, "y": y}
                               for i, (x, y) in enumerate(AIRA3)})
-    model = get_model("mvdr", engine, cfg,
-                      dict(solver="sparse", past_windows=4,
-                           freq_mag_threshold=0.0008, freq_max=16500.0,
-                           freq_min=100.0))
-    state = sharded_state_init(mesh, model, 2)
-    x = np.stack([make_scene(AIRA3, seconds=0.05, seed=i, hop=HOP,
-                             quiet_hops=8) for i in range(2)])
-    with pytest.warns(DeprecationWarning):
-        out, _ = sharded_batched_step(mesh, model, x, 0.0, state)
-    assert np.isfinite(np.asarray(out)).all()
+    params = (dict(mu0=0.0001, mu_max=0.1, filter_size=16) if name == "gsc"
+              else dict(past_windows=4, freq_mag_threshold=0.0008,
+                        freq_max=16500.0, freq_min=100.0))
+    model = get_model(name, engine, cfg, params)
+    b = 8
+    xs = np.stack([make_scene(AIRA3, seconds=0.05, seed=60 + i, hop=HOP,
+                              quiet_hops=8) for i in range(b)])
+    thetas = np.linspace(-30, 30, b)
+    state = sharded_state_init(mesh, model, b)
+    out, new_state = sharded_batched_step(mesh, model, xs, thetas, state)
+    assert out.sharding.spec[0] == "stream"
+    for i in range(b):
+        yi = np.asarray(model.process(xs[i], float(thetas[i])))
+        np.testing.assert_allclose(np.asarray(out)[i], yi, atol=1e-10)
 
 
 def test_sharded_das_3axis_mesh_sequence_parallel():
